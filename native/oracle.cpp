@@ -1,8 +1,8 @@
 // reference-execution oracle — plain C++/OpenMP port of the REFERENCE CPU
 // hot loop, compiled on this host so parity can be asserted against output
-// actually produced by reference semantics (VERDICT r4 "Missing #1/#2").
+// actually produced by reference semantics.
 //
-// This is NOT part of the TPU framework's compute path.  It exists to
+// This is NOT part of the framework's compute path.  It exists to
 //   (a) emit golden W/d/H fixtures (tests/test_golden_oracle.py),
 //   (b) measure the reference's CPU ALS/CV throughput on THIS host so the
 //       gate-2 anchor is a measurement, not a FLOP model,

@@ -1,4 +1,4 @@
-"""rcppml_tpu — TPU-native matrix-factorization framework.
+"""rcppml_tpu — a JAX matrix-factorization framework.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
 RcppML/FactorNet reference: ALS-NMF with six IRLS distributions,
@@ -9,49 +9,21 @@ execution over a ``jax.sharding.Mesh``.
 """
 
 def _setup_compilation_cache():
-    """Enable JAX's persistent compilation cache unless the user already
-    configured one.  Remote-compile backends pay seconds per executable
-    per process (measured 7.9 s -> 0.7 s on a cache hit for one matmul);
-    the streaming engine's per-panel-shape executables make cold starts
-    expensive without this.  Compiles faster than jax's default
-    min-compile-time threshold are not cached (no churn from tiny ops)."""
+    """Enable JAX's persistent compilation cache.
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is honoured as it stands (JAX
+    reads it itself).  Otherwise the cache lives at the fixed path
+    ``<checkout>/.jax_cache``: the path is part of what makes a later
+    process find an entry again, so it must not move between runs."""
     import os as _os
-    import tempfile as _tempfile
     if "JAX_COMPILATION_CACHE_DIR" in _os.environ:
         return
-    try:
-        import jax as _jax
-        if _jax.config.jax_compilation_cache_dir:
-            return
-        # per-user, owner-only path: a fixed shared /tmp name would break
-        # on multi-user hosts (first owner wins) and let another local
-        # user pre-seed executables the victim would deserialize
-        uid = _os.getuid() if hasattr(_os, "getuid") else 0
-        # partition by platform config: remote-compile backends (e.g. a
-        # TPU tunnel) produce CPU AOT artifacts with the REMOTE host's
-        # machine features — loading those in a local CPU-only process
-        # warns "could lead to SIGILL".  Separate pools per JAX_PLATFORMS
-        # keep remote-compiled and locally-compiled executables apart.
-        plat = _os.environ.get("JAX_PLATFORMS", "default").replace(",", "-")
-        path = _os.path.join(_tempfile.gettempdir(),
-                             f"rcppml_tpu_jax_cache_{uid}_{plat}")
-        _os.makedirs(path, mode=0o700, exist_ok=True)
-        if hasattr(_os, "getuid") and _os.stat(path).st_uid != uid:
-            return  # someone else owns the path — don't trust it
-        _jax.config.update("jax_compilation_cache_dir", path)
-        # the streaming engine's per-panel executables each compile in
-        # 0.3-1 s on a remote compile service — below jax's default 1 s
-        # caching threshold; cache them too.  Bound total size so /tmp
-        # (often RAM-backed) can't grow without limit across runs.
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                           0.25)
-        try:
-            _jax.config.update("jax_compilation_cache_max_size",
-                               2 * 1024 ** 3)
-        except Exception:                                # noqa: BLE001
-            pass  # older jax without the size knob
-    except Exception:                                    # noqa: BLE001
-        pass  # cache is an optimization; never block import
+    import jax as _jax
+    if _jax.config.jax_compilation_cache_dir:
+        return
+    root = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+    _jax.config.update("jax_compilation_cache_dir",
+                       _os.path.join(root, ".jax_cache"))
 
 
 _setup_compilation_cache()
@@ -142,7 +114,7 @@ _LAZY = {
     "accelerator_info": (".utils.resources", "tpu_info"),
     # literal-name compat aliases so reference scripts run unmodified
     # (the last 4 NAMESPACE exports without same-name analogs; the
-    # accelerator here IS the backend, so "gpu" maps to the TPU path)
+    # accelerator here IS the JAX backend)
     "gpu_available": (".utils.resources", "tpu_available"),
     "gpu_info": (".utils.resources", "tpu_info"),
     "st_read_gpu": (".io.spz", "st_read_device"),

@@ -67,6 +67,14 @@ def _to_dense_f32(data, allow_nan: bool = False):
     return arr
 
 
+def _gram_over_n(t):
+    """T @ T.T / n in full fp32 (an accelerator would otherwise run a
+    float32 product at reduced precision)."""
+    import jax.numpy as jnp
+    from .ops.linalg import PREC
+    return jnp.dot(t, t.T, precision=PREC) / t.shape[1]
+
+
 def _resolve_mask(A, mask):
     """NA handling + string masks, matching the reference gateway:
 
@@ -230,8 +238,7 @@ def build_config(
         # L1-penalized NNLS subproblem (the reference auto-select uses CD
         # whenever L1 != 0, R/nmf_thin.R:371-375).  Otherwise Cholesky+clip,
         # the reference's C++ default (solver_mode=1, core/config.hpp:133):
-        # on the MXU the batched Cholesky solve is strictly faster than the
-        # sequential CD sweep at every k.
+        # one batched Cholesky solve replaces the sequential CD sweep.
         solver_e = (Solver.CD if (needs_irls or l1w > 0 or l1h > 0)
                     else Solver.CHOLESKY)
     else:
@@ -400,7 +407,8 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
         # batched fast path: plain dense MSE fits vmap over the restart
         # axis — ONE device program whose batched matmuls read A once per
         # iteration for every restart (the serial reference loop pays the
-        # full HBM cost per restart; models/nmf.py fit_multi_restart)
+        # full memory-read cost per restart; models/nmf.py
+        # fit_multi_restart)
         plain = (mask is None and graph_W is None and graph_H is None
                  and target_H is None and target_W is None
                  and w_init is None and h_init is None
@@ -478,7 +486,7 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
             and not isinstance(data, str) and hasattr(data, "shape")
             and np.isscalar(k)):
         # auto-activate streaming when the dense fp32 matrix cannot fit
-        # in device HBM with headroom (gpu/loader.hpp streaming mode,
+        # in device memory with headroom (gpu/loader.hpp streaming mode,
         # test_gpu_oom.R:9) — panels stream through the chunked engine
         # instead of OOMing the accelerator.  NB+ZI streams too (panel-
         # local E-step); GP-family ZI and symmetric need the full matrix
@@ -601,12 +609,12 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
         aux["target_H"] = t
         if cfg.H.target_lambda < 0:
             # PROJ_ADV precompute: T @ T.T / n (nmf/fit.hpp:250-274)
-            aux["target_H_gram"] = (t @ t.T) / t.shape[1]
+            aux["target_H_gram"] = _gram_over_n(t)
     if target_W is not None:
         t = _to_dense_f32(target_W)
         aux["target_W"] = t
         if cfg.W.target_lambda < 0:
-            aux["target_W_gram"] = (t @ t.T) / t.shape[1]
+            aux["target_W_gram"] = _gram_over_n(t)
 
     from .utils import logging as logmod
     logmod.log_summary(

@@ -1,6 +1,6 @@
 """Numeric constants shared across the framework.
 
-TPU-native re-implementation of the constants contract in the reference
+JAX re-implementation of the constants contract in the reference
 library (``inst/include/FactorNet/core/constants.hpp:41-108``).  Values are
 kept identical so that convergence decisions and epsilon guards match the
 reference semantics.
@@ -11,10 +11,9 @@ CD_TOL = 1e-8          # per-sweep mean relative-change early-exit threshold
 # fp32 floor for the per-sweep exit: the reference's 1e-8 was chosen for
 # double-precision CD (constants.hpp:64); in fp32 the residual-tracked
 # coordinate changes bottom out at ~1e-7 relative, so 1e-8 NEVER fires and
-# every solve burns the full cd_maxit sweeps (measured: the entire IRLS
-# device-loop gap, BENCH_NOTES r5).  Clamping to ~4 ulp keeps the
-# criterion's meaning — "stop when changes reach numerical noise" — at
-# this precision.
+# every solve burns the full cd_maxit sweeps.  Clamping to ~4 ulp keeps
+# the criterion's meaning — "stop when changes reach numerical noise" —
+# at this precision.
 CD_TOL_F32_FLOOR = 5e-6
 CD_MAXIT = 100         # max CD sweeps per solve
 CD_ABS_TOL = 1e-15     # denominator guard in relative-change accumulation

@@ -1,13 +1,13 @@
 """DataLoader abstraction for larger-than-memory NMF.
 
-TPU equivalent of ``inst/include/FactorNet/io/`` (loader.hpp:60 interface,
+JAX equivalent of ``inst/include/FactorNet/io/`` (loader.hpp:60 interface,
 in_memory.hpp, spz_loader.hpp, caching_loader.hpp, ping_pong_prefetch.hpp):
 iterate column panels of A and of A^T, with a background-thread prefetcher
 that overlaps host-side decode with device compute (the reference's
 2-slot ping-pong double buffer).
 
 Panels are delivered as DENSE float32 blocks ready for ``jax.device_put`` —
-on TPU the dense MXU path consumes them directly.
+the dense matmul path consumes them directly.
 """
 
 from __future__ import annotations
@@ -32,14 +32,13 @@ class Chunk:
 
 class SparseChunk:
     """One column panel in COO form — the nnz-proportional ingest option
-    (VERDICT r3 #4/#2).  At the target densities (~5%), shipping
+    At the target densities (~5%), shipping
     (rows, cols, vals) instead of the dense block cuts host->device
     traffic ~5.5x (12 bytes/nnz vs 4 bytes/element); the panel is
-    densified ON DEVICE by a scatter-add so the downstream MXU GEMM path
+    densified ON DEVICE by a scatter-add so the downstream dense GEMM path
     is unchanged.  The reference's analogous structure is the CSC chunk
-    cuSPARSE consumes (sp_gpu_bridge.cu); on TPU dense GEMM beats sparse
-    matmul at these densities, so sparsity is exploited at the TRANSFER,
-    not the FLOP."""
+    cuSPARSE consumes (sp_gpu_bridge.cu); here sparsity is exploited at
+    the TRANSFER, not the FLOP."""
 
     __slots__ = ("col_start", "num_cols", "nnz", "rows", "counts", "vals")
 
@@ -327,9 +326,8 @@ class Prefetcher:
     on device — the native rANS decode releases the GIL, so workers
     genuinely overlap there; the Python-side panel prep does NOT, which
     is why the hot path avoids scipy object construction and column-id
-    expansion entirely (chunk_arrays + counts — measured 188 -> 175
-    s/sweep on the 469M-nnz flagship; depth=3 with GIL-held prep was
-    WORSE, 213 s).  ``transform`` runs IN THE WORKER on each decoded
+    expansion entirely (chunk_arrays + counts).  ``transform`` runs IN THE
+    WORKER on each decoded
     chunk (e.g. the streaming engine's wire compaction) so per-panel
     host prep leaves the consumer's critical path."""
 

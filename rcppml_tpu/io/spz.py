@@ -42,8 +42,8 @@ def _load_lib():
     if stale:
         if os.environ.get("RCPPML_TPU_NO_BUILD"):
             raise RuntimeError("libstreampress.so not built (or stale)")
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True)
+        subprocess.run(["make", "-C", _NATIVE_DIR, "libstreampress.so"],
+                       check=True, capture_output=True)
     lib = ctypes.CDLL(_LIB_PATH)
     lib.spz_last_error.restype = ctypes.c_char_p
     lib.spz_info.restype = ctypes.c_int

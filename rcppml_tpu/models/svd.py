@@ -1,8 +1,8 @@
 """Truncated SVD algorithms: Lanczos, IRLBA, randomized, Krylov, deflation.
 
-TPU re-architecture of ``inst/include/FactorNet/svd/`` (gateway.hpp:141-187,
+JAX re-architecture of ``inst/include/FactorNet/svd/`` (gateway.hpp:141-187,
 lanczos.hpp, irlba.hpp, randomized.hpp, krylov.hpp, deflation.hpp).  All
-matvecs/matmuls are dense MXU ops on device; the small projected problems
+matvecs/matmuls are dense ops on device; the small projected problems
 (bidiagonal SVDs) are solved host-side in fp64, as the reference solves them
 with Eigen in fp32+.
 
@@ -387,7 +387,8 @@ def irlba_svd(A, cfg: SVDConfig) -> SVDResult:
 
 def randomized_svd(A, cfg: SVDConfig) -> SVDResult:
     """Halko-Martinsson-Tropp randomized SVD with oversampling + power
-    iterations (svd/randomized.hpp).  Pure MXU: tall-skinny QR + small SVD."""
+    iterations (svd/randomized.hpp).  Dense matmuls: tall-skinny QR + small
+    SVD."""
     op, center, scale = _prep(A, cfg)
     m, n = op.shape
     k = min(cfg.k, min(m, n))
@@ -833,7 +834,7 @@ def krylov_svd(A, cfg: SVDConfig, aux=None) -> SVDResult:
     """KSPR constrained SVD: Lanczos seed -> batched projected refinement
     (svd/krylov.hpp:420-600).
 
-    Each pass: Gram of the fixed side -> MXU SpMM -> Cholesky solve ->
+    Each pass: Gram of the fixed side -> dense SpMM -> Cholesky solve ->
     elementwise constraint projection (L1 soft-threshold at L1/(2 norm_sq),
     nonneg clip) -> column normalization with scale absorbed into d.
     Falls back to pure Lanczos when no constraints are active.

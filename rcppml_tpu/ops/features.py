@@ -1,6 +1,6 @@
 """Regularizer / feature application on Gram and RHS matrices.
 
-TPU-native equivalents of ``inst/include/FactorNet/features/`` and the
+JAX equivalents of ``inst/include/FactorNet/features/`` and the
 shared application sequence in ``nmf/variant_helpers.hpp:89-146``.  All of
 these touch only k x k / k x cols matrices — negligible cost next to the
 O(m n k) primitives, exactly the reference's design rationale
@@ -39,7 +39,7 @@ def apply_l21(G, factor, lam: float):
 def apply_graph_reg(G, laplacian, factor, lam: float):
     """features/graph_reg.hpp:46-59: G += lam * F @ L @ F.T.
 
-    ``laplacian`` is a dense (cols x cols) array on TPU; the reference uses
+    ``laplacian`` is a dense (cols x cols) array here; the reference uses
     a sparse SpMM but the result is identical.
     """
     if lam <= 0 or laplacian is None:
@@ -100,7 +100,7 @@ def tier2_gram_addition(factor, fc: FactorConfig, graph=None):
     called at fit_cv.hpp:417,581 and cv_detail.hpp:168,272).  Since both terms
     depend only on the previous iterate of the factor being solved, they are
     one shared k x k matrix added to every per-column (weighted) Gram —
-    identical algebra, one MXU matmul instead of n.
+    identical algebra, one matmul instead of n.
 
     Returns None when neither feature is configured (static decision).
     """

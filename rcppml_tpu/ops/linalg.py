@@ -1,13 +1,13 @@
 """Core linear-algebra primitives for the ALS engine.
 
-TPU-native equivalents of the reference's CPU/GPU primitives
+JAX equivalents of the reference's CPU/GPU primitives
 (``inst/include/FactorNet/primitives/{cpu,gpu}/``):
 
   * :func:`gram` — ``G = F @ F.T`` (gram.hpp:30-62 / cuBLAS SYRK).  A k x k
     matmul; under a sharded ``pjit`` this psums over the sharded axis for
     free via GSPMD.
   * :func:`rhs` — ``B = F @ A`` (rhs.hpp / cuSPARSE SpMM).  The reference
-    gathers CSC columns with OpenMP; on TPU this is a dense MXU matmul over
+    gathers CSC columns with OpenMP; here this is a dense matmul over
     (blocked) dense panels — zeros contribute nothing to the products, so
     results are identical for sparse data stored densely.
   * :func:`extract_scaling` — row-norm extraction into d
@@ -16,7 +16,8 @@ TPU-native equivalents of the reference's CPU/GPU primitives
     (nmf/fit_cpu.hpp:17-20, primitives/cpu/loss.hpp).
 
 All matmuls run with ``precision=HIGHEST`` so fp32 Gram matrices feeding
-Cholesky factorizations do not lose precision to bf16 MXU passes.
+Cholesky factorizations do not lose precision to reduced-precision
+(bf16/TF32) matrix-unit passes.
 """
 
 from __future__ import annotations
@@ -25,9 +26,9 @@ import jax
 import jax.numpy as jnp
 
 from ..config import Norm
-from .. import constants
+from .. import backend, constants
 
-# fp32 accumulation through the MXU: required for Gram matrices that feed
+# full fp32 matmuls: required for Gram matrices that feed
 # Cholesky solves, and for loss parity with the fp32 CPU reference.
 PREC = jax.lax.Precision.HIGHEST
 
@@ -43,9 +44,8 @@ def rhs(F: jax.Array, A: jax.Array) -> jax.Array:
     """B = F @ A (k x n). The throughput kernel (primitives/cpu/rhs.hpp).
 
     When A is stored bf16 (opt-in ``bf16_data`` fast path) the small
-    operand is cast to match so the MXU runs a native bf16 matmul with
-    fp32 accumulation — halving the HBM read of the big operand, which
-    is what bounds the ALS iteration (BENCH_NOTES.md whole-fit study)."""
+    operand is cast to match so the matmul runs natively in bf16 with
+    fp32 accumulation — halving the memory read of the big operand."""
     if A.dtype == jnp.bfloat16:
         return jnp.dot(F.astype(jnp.bfloat16), A,
                        preferred_element_type=jnp.float32)
@@ -101,11 +101,9 @@ def kr_product(F: jax.Array) -> jax.Array:
 
     KR[(k1*k + k2), m] = F[k1, m] * F[k2, m]: turns the per-column weighted
     Gram batch G_j = F diag(w_j) F^T into ONE dense matmul
-    ``KR @ w -> (k^2, n)`` — an MXU-shaped (k^2, m) x (m, n) product
-    instead of n separate (k, m) x (m, k) products whose 50x50 outputs
-    under-tile the 128x128 systolic array.  Measured 2026-08-19 on
-    movielens k=50 (v5e, in-loop): 0.275 -> 0.071 ms (H-side) and
-    0.201 -> 0.055 ms (W-side) per call.
+    ``KR @ w -> (k^2, n)`` — a large (k^2, m) x (m, n) product instead of
+    n separate (k, m) x (m, k) products whose small k x k outputs
+    under-fill the matrix units.
 
     The product is formed in fp32 and rounded ONCE to bf16 (one rounding
     of F_k*F_l, vs two separate roundings of F in the batched path).
@@ -123,9 +121,12 @@ def weighted_gram_and_rhs(F: jax.Array, w: jax.Array, A_blk: jax.Array,
     F (k, m), w (m, bc), A_blk (m, bc) -> (Gb (bc, k, k), b (k, bc)).
 
     This is the throughput kernel of the IRLS / CV paths (the reference
-    computes it per column: nnls_batch_irls.hpp:459-516).  On TPU inputs
-    are cast to bfloat16 with fp32 MXU accumulation — ~1e-3 relative G
-    error, well within the cross-backend statistical-equivalence contract
+    computes it per column: nnls_batch_irls.hpp:459-516).  On an
+    accelerator inputs are cast to bfloat16 with fp32 accumulation — the
+    terms are nonnegative, so each entry is within 2^-8 plus the fp32 sum
+    error of its own value (about 2e-4 of a column's largest entry where no
+    single row dominates the column), well within the cross-backend
+    statistical-equivalence contract
     (rng/rng.hpp:24-25); CPU keeps full fp32 (bf16 is emulated there).
 
     ``KR``: optional precomputed :func:`kr_product`(F) — callers solving
@@ -134,19 +135,18 @@ def weighted_gram_and_rhs(F: jax.Array, w: jax.Array, A_blk: jax.Array,
     the budget the Gram batch is ONE large matmul (see kr_product);
     otherwise the blocked batched dot_general runs.
     """
-    if jax.default_backend() == "cpu":
+    if not backend.on_accelerator():
         Fw = F[None, :, :] * w.T[:, None, :]
         Gb = jnp.einsum("jkm,lm->jkl", Fw, F, precision=PREC)
         b = jnp.dot(F, w * A_blk, precision=PREC)
         return Gb, b
     if precise:
-        # ``precise``: fp32 on TPU — the masked/NA MSE solves must match
-        # reference (fp32) precision; a bf16 Gram of a near-singular
+        # ``precise``: fp32 on an accelerator — the masked/NA MSE solves
+        # must match reference (fp32) precision; a bf16 Gram of a near-singular
         # masked column carries ~1e-3 noise that exceeds the stabilizing
-        # ridge and NaNs the Cholesky (surfaced by the r5 on-chip suite).
-        # Formulated through an fp32 KR operand so no (bc, k, m)
-        # intermediate exists — the caller's block sizing assumes none
-        # (r5 self-review #1).
+        # ridge and NaNs the Cholesky.  Formulated through an fp32 KR
+        # operand so no (bc, k, m) intermediate exists — the caller's
+        # block sizing assumes none.
         k, m = F.shape
         w = w.astype(F.dtype)
         A_blk = A_blk.astype(F.dtype)
@@ -187,20 +187,18 @@ def gathered_gram_downdate(F: jax.Array, idx: jax.Array, val: jax.Array):
 
     F (k, m), idx (T, bc) int32 row indices, val (T, bc) 0/1 validity
     (padding slots carry val 0 and any index).  Returns (bc, k, k) — the
-    term to SUBTRACT from the full Gram.  bf16 MXU with fp32 accumulation
-    on accelerators (same contract as weighted_gram_and_rhs).
+    term to SUBTRACT from the full Gram.
 
-    MEASURED 2026-08-17 (pbmc3k 13714x2638, k=16, T~=1670, v5e): the FLOP
-    model does not survive contact with the hardware — the ``F[:, idx]``
-    gather is VPU/scalar-unit work and the downdate fit runs 0.45 s vs
-    the weighted einsum's 0.10 s (20 CV iters, device-resident).  The
-    weighted path stays the default dispatch; this kernel is opt-in
-    (``fit_cv_or_masked(use_downdate=True)``) for gather-cheap backends.
+    The ``F[:, idx]`` gather is elementwise work where the weighted einsum
+    is one dense matmul, so the FLOP saving need not show on an
+    accelerator.  The weighted path stays the default dispatch; this
+    kernel is opt-in (``fit_cv_or_masked(use_downdate=True)``) for
+    gather-cheap backends.
     """
     # fp32 on every backend: this Gram feeds the same masked Cholesky
     # as the (fp32) weighted path — bf16 noise exceeds the stabilizing
     # ridge on near-singular masked columns and breaks downdate/weighted
-    # agreement (r5 on-chip suite)
+    # agreement
     Fg = F[:, idx]                                    # (k, T, bc)
     Fgv = Fg * val[None, :, :]
     return jnp.einsum("itc,ltc->cil", Fgv, Fg, precision=PREC)

@@ -1,6 +1,6 @@
 """Distribution math: IRLS weights, NLL/deviance contributions, variance.
 
-Vectorized TPU equivalents of ``inst/include/FactorNet/math/loss.hpp``.
+Vectorized JAX equivalents of ``inst/include/FactorNet/math/loss.hpp``.
 Every function operates elementwise on (m, n) arrays (mu = predicted mean),
 so weights/losses are a single fused VPU pass on device.  The reference
 computes these per-entry in fp64; here fp32 with the same clamps — the

@@ -157,7 +157,7 @@ def fit_sharded(A, cfg: NMFConfig, mesh: Optional[Mesh] = None, *,
 
     mesh = mesh or default_mesh()
     if cfg.fused_vmem:
-        raise ValueError("fused_vmem is a single-chip VMEM-resident path — "
+        raise ValueError("fused_vmem is a single-device fit — "
                          "incompatible with a sharded mesh fit")
     # an already-sharded global jax.Array (e.g. multihost.shard_host_data)
     # must NOT be pulled to host — in multi-process mode no host holds it

@@ -1,22 +1,23 @@
 """Multi-host (multi-process) execution setup.
 
 The reference has no distributed axis at all (SURVEY.md §2.10: OpenMP +
-one GPU); this module is the pod-scale entry point for the TPU build.
+one GPU); this module is the multi-node entry point.
 
-One process per host, each seeing its local chips; `jax.distributed`
-links them so `jax.devices()` returns the GLOBAL device list and every
-jitted computation (including the whole ALS/CV/IRLS stack) runs SPMD
-across hosts with GSPMD collectives riding ICI within a pod slice.
+One process per host (or per GPU), each seeing its local devices;
+`jax.distributed` links them so `jax.devices()` returns the GLOBAL device
+list and every jitted computation (including the whole ALS/CV/IRLS stack)
+runs SPMD across hosts, with GSPMD collectives handed to NCCL (NVLink
+within a node, the cluster network between nodes).
 
-Typical pod usage (same script on every host):
+Typical GPU-cluster usage (same script on every host):
 
     from rcppml_tpu.parallel import multihost, mesh
-    multihost.initialize()                    # TPU pod: auto-detected env
-    m = mesh.default_mesh()                   # spans ALL hosts' chips
+    multihost.initialize("node0:1234", num_processes=4, process_id=rank)
+    m = mesh.default_mesh()                   # spans ALL hosts' devices
     model = rt.nmf(A, k, mesh=m)              # same API as single host
 
-On GCE TPU pods `jax.distributed.initialize()` discovers the coordinator
-and process count from the TPU metadata; elsewhere pass them explicitly.
+Under a cluster manager JAX detects (e.g. SLURM), the arguments may be
+omitted; otherwise pass the coordinator, process count and process id.
 """
 
 from __future__ import annotations
@@ -36,9 +37,9 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> dict:
     """Join the multi-process JAX runtime (idempotent).
 
-    With no arguments, relies on the TPU pod auto-detection; on CPU/GPU
-    clusters pass ``coordinator_address`` ("host:port"),
-    ``num_processes``, and this host's ``process_id``.
+    With no arguments, relies on JAX's cluster auto-detection (e.g.
+    SLURM); otherwise pass ``coordinator_address`` ("host:port"),
+    ``num_processes``, and this process's ``process_id``.
 
     Returns a summary dict: process_index, process_count, local and
     global device counts.

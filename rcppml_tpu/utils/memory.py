@@ -4,8 +4,8 @@ The reference refuses an in-memory sparse transpose when it would not
 fit in host RAM with 2x headroom (core/memory.hpp:152-190,
 ``check_transpose_memory``) and reads MemAvailable from /proc/meminfo
 (core/platform.hpp:42-63).  On this stack the dangerous allocation is
-different: sparse inputs are densified to fp32 for the MXU, so the
-guard protects (1) the host densification and (2) the HBM-resident
+different: sparse inputs are densified to fp32 on the device, so the
+guard protects (1) the host densification and (2) the device-resident
 copy, and its refusal message points at the .spz streaming path (the
 same remedy the reference suggests).
 """
@@ -40,35 +40,15 @@ def available_host_bytes() -> int:
     return 0
 
 
-# Known accelerator HBM sizes (GB) by device_kind substring — remote PJRT
-# clients (e.g. tunneled TPUs) often return no memory_stats, but the chip
-# is identified; a known kind beats "unknown".  Values are per-chip.
-_HBM_BY_KIND = (
-    ("v5 lite", 16), ("v5e", 16), ("v6 lite", 32), ("v6e", 32),
-    ("v5p", 95), ("v4", 32), ("v3", 16), ("v2", 8),
-)
-
-
 def device_hbm_bytes() -> int:
-    """Per-device accelerator memory in bytes; 0 = unknown."""
+    """Per-device accelerator memory in bytes (``bytes_limit`` of the
+    device's memory stats); 0 = unknown."""
     try:
         import jax
-        dev = jax.devices()[0]
-        stats = dev.memory_stats()
-        if stats:
-            limit = stats.get("bytes_limit") or stats.get(
-                "bytes_reservable_limit") or 0
-            if limit:
-                return int(limit)
-        kind = getattr(dev, "device_kind", "") or ""
-        kl = kind.lower()
-        if "tpu" in kl or "v5" in kl or "v6" in kl:
-            for sub, gb in _HBM_BY_KIND:
-                if sub in kl:
-                    return gb * 1024 ** 3
+        stats = jax.devices()[0].memory_stats()
+        return int((stats or {}).get("bytes_limit") or 0)
     except Exception:
-        pass
-    return 0
+        return 0
 
 
 @dataclass
@@ -86,7 +66,8 @@ def check_dense_alloc(m: int, n: int, itemsize: int = 4,
     """Would a dense (m, n) allocation fit with 2x headroom?
 
     ``where`` selects the budget: "host" (RAM, for densifying sparse
-    input) or "device" (HBM, for the device-resident copy).  Unknown
+    input) or "device" (accelerator memory, for the device-resident copy).
+    Unknown
     budgets pass with a note, as in core/memory.hpp:157-165.
     """
     required = int(m) * int(n) * int(itemsize)

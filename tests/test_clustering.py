@@ -7,7 +7,7 @@ import pytest
 from rcppml_tpu.models.clustering import (align_factors, bipartite_match,
                                           bipartition, consensus_nmf, dclust)
 
-pytestmark = pytest.mark.tpu_ok  # numerics-critical: runs on the real chip
+pytestmark = pytest.mark.numerics  # numerics-critical subset
 
 
 def _two_blob_matrix(seed=0, m=30, n1=40, n2=50):

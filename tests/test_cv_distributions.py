@@ -11,7 +11,7 @@ import scipy.sparse as sp
 
 import rcppml_tpu as rt
 
-pytestmark = pytest.mark.tpu_ok  # numerics-critical: runs on the real chip
+pytestmark = pytest.mark.numerics  # numerics-critical subset
 
 
 def _pos_data(m=50, n=35, seed=42):

@@ -1,11 +1,7 @@
-"""The opt-in ``fused_vmem`` whole-fit fast path (round-4 promotion).
+"""The opt-in ``fused_vmem`` Newton-Schulz ALS (models/nmf.py _ns_als_xla).
 
-On CPU these exercise the backend-portable XLA twin (models/nmf.py
-_ns_als_xla) — same Newton-Schulz ALS the Pallas kernel runs with A in
-VMEM on TPU (ops/pallas_kernels.py fused_als_vmem; TPU-side parity is
-pinned in test_tpu_kernels.py).  Contract modeled on ``bf16_data``:
-explicit opt-in, same ALS fixed point to ~1e-3, trailing digits differ
-from the Cholesky loop.
+Contract modeled on ``bf16_data``: explicit opt-in, same ALS fixed point
+to ~1e-3, trailing digits differ from the Cholesky loop.
 """
 
 import numpy as np
@@ -24,7 +20,7 @@ def _planted(m=160, n=120, k=5, noise=0.0, seed=0):
     return np.maximum(A, 0.0).astype(np.float32)
 
 
-@pytest.mark.tpu_ok
+@pytest.mark.numerics
 def test_fused_vmem_recovers_planted_rank():
     A = _planted()
     res = rt.nmf(A, 5, seed=7, maxit=200, tol=0.0, sort_model=False,
@@ -34,7 +30,7 @@ def test_fused_vmem_recovers_planted_rank():
     assert np.isfinite(rel) and rel < 0.05, rel
 
 
-@pytest.mark.tpu_ok
+@pytest.mark.numerics
 def test_fused_vmem_matches_default_path_at_convergence():
     # different solver (Newton-Schulz inverse vs Cholesky), same ALS fixed
     # point: converged losses agree to ~1e-2 relative.  noise=0.3 keeps
@@ -75,7 +71,7 @@ def test_fused_vmem_deterministic():
     np.testing.assert_array_equal(r1.H, r2.H)
 
 
-@pytest.mark.tpu_ok
+@pytest.mark.numerics
 def test_fused_vmem_bf16_combo_runs():
     A = _planted(noise=0.05, seed=2)
     res = rt.nmf(A, 5, seed=7, maxit=200, tol=0.0, sort_model=False,
@@ -172,20 +168,6 @@ def test_fused_vmem_sparse_input_densifies():
     np.testing.assert_array_equal(res_s.W, res_d.W)
 
 
-def test_fused_vmem_size_gate_accounting():
-    from rcppml_tpu.ops.pallas_kernels import (fused_vmem_bytes,
-                                               fused_vmem_fits)
-    # pbmc3k-shaped: bf16 fits (~74 MB), fp32 does not (~148 MB)
-    assert fused_vmem_fits(13714, 2638, 20, True, 1020)
-    assert not fused_vmem_fits(13714, 2638, 20, False, 1020)
-    # bytes are monotone in every argument
-    b0 = fused_vmem_bytes(1000, 1000, 10, False, 100)
-    assert fused_vmem_bytes(2000, 1000, 10, False, 100) > b0
-    assert fused_vmem_bytes(1000, 2000, 10, False, 100) > b0
-    assert fused_vmem_bytes(1000, 1000, 20, False, 100) > b0
-    assert fused_vmem_bytes(1000, 1000, 10, True, 100) < b0
-
-
 def test_fused_vmem_rejects_checkpointing():
     from rcppml_tpu.utils.checkpoint import fit_checkpointed
     A = _planted()
@@ -204,7 +186,7 @@ def test_fused_vmem_rejects_mask_zeros_direct_path():
         rt.build_config(5, bf16_data=True, mask_zeros=True).validate()
 
 
-@pytest.mark.tpu_ok
+@pytest.mark.numerics
 def test_fused_vmem_degenerate_rank_d_floor():
     # k far above the data's effective rank: clipped-to-zero factor rows
     # must produce d = 1e-15 (the clamp floor), never 0 or NaN

@@ -38,7 +38,7 @@ import rcppml_tpu as rt  # noqa: E402
 from rcppml_tpu import rng as myrng  # noqa: E402
 from rcppml_tpu.models.nmf_cv import fit_cv_or_masked  # noqa: E402
 
-pytestmark = pytest.mark.tpu_ok  # numerics-critical: runs on the real chip
+pytestmark = pytest.mark.numerics  # numerics-critical subset
 
 
 # ---------------------------------------------------------------------------

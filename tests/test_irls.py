@@ -11,7 +11,7 @@ import pytest
 import rcppml_tpu as rt
 from rcppml_tpu.utils.simulate import simulate_counts, simulate_nmf
 
-pytestmark = pytest.mark.tpu_ok  # numerics-critical: runs on the real chip
+pytestmark = pytest.mark.numerics  # numerics-critical subset
 
 
 @pytest.fixture(scope="module")

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import scipy.stats as st
 
-pytestmark = pytest.mark.tpu_ok  # numerics-critical: runs on the real chip
+pytestmark = pytest.mark.numerics  # numerics-critical subset
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +30,7 @@ def test_nb_nll_matches_scipy():
     p = r / (r + mu)
     ref = -st.nbinom.logpmf(y, r, p)
     const = np.array([__import__("math").lgamma(v + 1) for v in y])
-    # atol: TPU fp32 lgamma/log are a few hundred ulps off glibc's
+    # atol: accelerator fp32 lgamma/log can be a few hundred ulps off glibc's
     # fp64-backed ones (measured <=5e-4 abs on these values); a wrong
     # TERM in the NLL shifts results by O(0.1+)
     np.testing.assert_allclose(ours, ref - const, rtol=1e-4, atol=1e-3)
@@ -45,7 +45,7 @@ def test_kl_poisson_limit_of_gp():
     ours = np.asarray(losses.loss_gp(jnp.asarray(y), jnp.asarray(mu), 0.0))
     ref = -st.poisson.logpmf(y.astype(int), mu)
     const = np.array([__import__("math").lgamma(v + 1) for v in y])
-    # atol: TPU fp32 transcendental ulps (see test_nb_nll_matches_scipy)
+    # atol: accelerator fp32 transcendental ulps (test_nb_nll_matches_scipy)
     np.testing.assert_allclose(ours, ref - const, rtol=1e-4, atol=1e-3)
     # the y=0 quirk: loss = s - log(s), not s
     q = float(losses.loss_gp(jnp.asarray(0.0), jnp.asarray(0.7), 0.0))

@@ -67,7 +67,7 @@ def test_top_level_st_roundtrip(tmp_path):
 
 def test_gpu_compat_aliases_complete_the_namespace():
     """Every reference NAMESPACE export resolves under its literal name
-    (TPU-native analogs for the 4 GPU-specific ones) — a reference
+    (JAX-backend analogs for the 4 GPU-specific ones) — a reference
     script's imports run unmodified."""
     import numpy as np
     import scipy.sparse as sp

@@ -270,7 +270,7 @@ def test_inf_input_rejected():
 
 
 # ---------------------------------------------------------------------------
-# bf16_data speed knob (TPU HBM-bandwidth fast path; BENCH_NOTES.md)
+# bf16_data speed knob (halves the device-memory read of A)
 # ---------------------------------------------------------------------------
 
 def test_bf16_data_close_to_fp32():

@@ -6,7 +6,7 @@ import pytest
 import rcppml_tpu as rt
 from rcppml_tpu.models.project import evaluate, mse, nnls, predict
 
-pytestmark = pytest.mark.tpu_ok  # numerics-critical: runs on the real chip
+pytestmark = pytest.mark.numerics  # numerics-critical subset
 
 
 def test_nnls_exact_recovery():

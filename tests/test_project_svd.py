@@ -8,7 +8,7 @@ import pytest
 
 import rcppml_tpu as rt
 
-pytestmark = pytest.mark.tpu_ok  # numerics-critical: runs on the real chip
+pytestmark = pytest.mark.numerics  # numerics-critical subset
 
 
 @pytest.fixture(scope="module")

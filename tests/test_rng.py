@@ -11,7 +11,7 @@ import pytest
 
 from rcppml_tpu import rng
 
-pytestmark = pytest.mark.tpu_ok  # numerics-critical: runs on the real chip
+pytestmark = pytest.mark.numerics  # numerics-critical subset
 
 
 def _splitmix_scalar(seed):

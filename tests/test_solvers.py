@@ -6,7 +6,7 @@ import pytest
 
 import jax.numpy as jnp
 
-pytestmark = pytest.mark.tpu_ok  # numerics-critical: runs on the real chip
+pytestmark = pytest.mark.numerics  # numerics-critical subset
 
 from rcppml_tpu.ops import linalg, solvers
 
@@ -41,7 +41,7 @@ def test_cholesky_clip_batch_unconstrained(spd_system):
     G, B = spd_system
     X = solvers.cholesky_clip_batch(G, B, nonneg=False)
     # verify the residual in fp64 numpy: `G @ X` as a jnp op runs at the
-    # backend's DEFAULT matmul precision (bf16 inputs on TPU), which
+    # backend's DEFAULT matmul precision (TF32/bf16 on an accelerator), which
     # would test the harness's rounding instead of the solver
     np.testing.assert_allclose(
         np.asarray(G, np.float64) @ np.asarray(X, np.float64),

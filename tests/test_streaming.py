@@ -8,7 +8,7 @@ from rcppml_tpu.io.loaders import CachingLoader, InMemoryLoader, SpzLoader
 from rcppml_tpu.models.nmf_chunked import nmf_chunked
 from rcppml_tpu.utils.simulate import simulate_nmf
 
-pytestmark = pytest.mark.tpu_ok  # numerics-critical: runs on the real chip
+pytestmark = pytest.mark.numerics  # numerics-critical subset
 
 
 @pytest.fixture(scope="module")

@@ -11,7 +11,7 @@ from rcppml_tpu.models.svd import (deflation_svd, irlba_svd, krylov_svd,
 from rcppml_tpu.config import SVDConfig, FactorConfig
 import rcppml_tpu as rt
 
-pytestmark = pytest.mark.tpu_ok  # numerics-critical: runs on the real chip
+pytestmark = pytest.mark.numerics  # numerics-critical subset
 
 
 @pytest.fixture(scope="module")

@@ -9,7 +9,7 @@ import scipy.sparse as sp
 
 import rcppml_tpu as rt
 
-pytestmark = pytest.mark.tpu_ok  # numerics-critical: runs on the real chip
+pytestmark = pytest.mark.numerics  # numerics-critical subset
 
 
 @pytest.fixture(scope="module")

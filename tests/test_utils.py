@@ -259,7 +259,7 @@ def test_resources_info():
     info = tpu_info()
     assert info["num_devices"] >= 1
     assert isinstance(tpu_available(), bool)
-    assert select_resources(nnz=1_000_000) in ("cpu", "tpu")
+    assert select_resources(nnz=1_000_000) in ("cpu", "gpu")
 
 
 def test_load_data_formats(tmp_path):

@@ -194,7 +194,7 @@ def run_fit(path: str, k: int, sweeps: int):
     decode_per_sweep = TimedLoader.decode_s / max(len(sweep_walls), 1)
 
     busy = t_device_sweep / steady
-    # projection to locally-attached TPU (PCIe gen4 x16 ~ 16 GB/s loaded)
+    # projection to a locally-attached card (PCIe gen4 x16 ~ 16 GB/s loaded)
     upload_local = (fwd_b + trp_b) / 16e9
     ingest_local = max(decode_per_sweep, upload_local)   # overlapped
     busy_local = t_device_sweep / max(t_device_sweep, ingest_local)
@@ -228,9 +228,10 @@ def run_fit(path: str, k: int, sweeps: int):
         "arithmetic_intensity_note": (
             f"streaming ALS moves each nnz across the link once per "
             f"sweep for ~4k FLOPs of GEMM: {4 * k} FLOP / ~4 wire bytes "
-            f"= {k:.0f} FLOP/B.  A v5e needs ~10^4 FLOP/B to saturate "
-            f"the MXU from a 16 GB/s link, so chip-busy is bounded by "
-            f"ingest at ANY attachment — same physics as the "
+            f"= {k:.0f} FLOP/B, orders of magnitude below what a "
+            f"16 GB/s link needs to keep a matrix unit busy, so "
+            f"chip-busy is bounded by ingest at ANY attachment — same "
+            f"physics as the "
             f"reference's disk-bound chunked engine "
             f"(streampress.Rmd:355: 93 s just to READ this matrix at "
             f"1 thread; its GPU chunked path is PCIe/decode-bound "

@@ -4,7 +4,7 @@ On real multi-chip hardware this measures ALS throughput vs mesh size
 (the BASELINE scaling-efficiency gate).  Without multiple real chips it
 can still run on N virtual CPU devices (--cpu N) to exercise the sharded
 program and the GSPMD collectives end-to-end; CPU numbers demonstrate the
-machinery, not TPU scaling.
+machinery, not accelerator scaling.
 
 Usage:
   python tools/scaling_bench.py             # real devices
